@@ -21,14 +21,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from multimodal_flows_tpu.config import Config
-from multimodal_flows_tpu.data.datasets import ArrayDataset
-from multimodal_flows_tpu.data.state import DataCoupling, MultiModal
-from multimodal_flows_tpu.data.toy import NGaussians, TwoMoons
-from multimodal_flows_tpu.train.systems import MMF
-from multimodal_flows_tpu.train.trainer import Trainer
-from multimodal_flows_tpu.utils.logger import SimpleLogger as log
-from multimodal_flows_tpu.utils.plotting import (plot_trajectories,
+from multimodal_flows.config import Config
+from multimodal_flows.data.datasets import ArrayDataset
+from multimodal_flows.data.state import DataCoupling, MultiModal
+from multimodal_flows.data.toy import NGaussians, TwoMoons
+from multimodal_flows.train.systems import MMF
+from multimodal_flows.train.trainer import Trainer
+from multimodal_flows.utils.logger import SimpleLogger as log
+from multimodal_flows.utils.plotting import (plot_trajectories,
                                                  plot_trajectory_panels)
 
 
@@ -96,7 +96,7 @@ def main(argv=None):
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    from multimodal_flows_tpu.utils.metrics import wasserstein1d
+    from multimodal_flows.utils.metrics import wasserstein1d
 
     truth = TwoMoons(num_points_per_moon=n // 2, seed=9)
     gen_xy = np.asarray(final.continuous)[:, 0, :]

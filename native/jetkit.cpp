@@ -1,7 +1,7 @@
 // jetkit: native jet substructure kernels (kt clustering, N-subjettiness,
 // energy correlation functions).
 //
-// TPU-native replacement for the reference's fastjet dependency
+// Replacement for the reference's fastjet dependency
 // (reference `utils/aoj.py:536-627` clusters with
 // fastjet.kt_algorithm + WTA_pt_scheme and computes tau1/2/3, c1, d2, d0).
 // fastjet is a C++ library consumed through Python bindings there; here the

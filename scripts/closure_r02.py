@@ -110,18 +110,18 @@ def main(argv=None):
     import h5py
     import jax
 
-    from multimodal_flows_tpu.config import Config
-    from multimodal_flows_tpu.data.aoj import AspenOpenJets, sample_from_empirical_masks
-    from multimodal_flows_tpu.data.datasets import ArrayDataset
-    from multimodal_flows_tpu.data.state import DataCoupling, MultiModal
-    from multimodal_flows_tpu.sampling.generator import generate_bucketed
-    from multimodal_flows_tpu.train.systems import MMF
-    from multimodal_flows_tpu.train.trainer import Trainer
-    from multimodal_flows_tpu.utils import enable_compilation_cache
-    from multimodal_flows_tpu.utils.jet_features import JetFeatures
-    from multimodal_flows_tpu.utils.logger import SimpleLogger as log
-    from multimodal_flows_tpu.utils.metrics import wasserstein_flavor, wasserstein1d
-    from multimodal_flows_tpu.utils import plotting
+    from multimodal_flows.config import Config
+    from multimodal_flows.data.aoj import AspenOpenJets, sample_from_empirical_masks
+    from multimodal_flows.data.datasets import ArrayDataset
+    from multimodal_flows.data.state import DataCoupling, MultiModal
+    from multimodal_flows.sampling.generator import generate_bucketed
+    from multimodal_flows.train.systems import MMF
+    from multimodal_flows.train.trainer import Trainer
+    from multimodal_flows.utils import enable_compilation_cache
+    from multimodal_flows.utils.jet_features import JetFeatures
+    from multimodal_flows.utils.logger import SimpleLogger as log
+    from multimodal_flows.utils.metrics import wasserstein_flavor, wasserstein1d
+    from multimodal_flows.utils import plotting
 
     enable_compilation_cache()
     os.makedirs(args.workdir, exist_ok=True)
@@ -251,7 +251,7 @@ def main(argv=None):
         f"| {k} | {wf[k]:.4g} | {wf_un[k]:.4g} |" for k in sorted(wf))
     md = f"""# Closure — round 2
 
-End-to-end quality closure of the TPU rebuild on synthetic AOJ-like jets
+End-to-end quality closure of the JAX rebuild on synthetic AOJ-like jets
 (real AOJ is unreachable from this environment; the dataset has a falling
 jet-pT spectrum, collimated constituents, and pT-correlated AOJ-like
 flavor fractions — see `scripts/closure_r02.py`).

@@ -4,7 +4,7 @@ Round 3 left the pairwise-bias encoders (KinFormer+Lund, co-occurrence)
 and EPiC on the bucketed fallback; round 4 moved them onto the packed
 path (chunked Lund pair-MLP, project-before-gather co-occurrence bias,
 per-segment EPiC pooling).  This script loads each trained round-4
-encoder experiment (from `scripts/encoder_closures_r04.py`) and times
+encoder experiment (the round-4 encoder closures) and times
 `generate_packed` vs the `generate_bucketed` fallback on the same masks,
 reporting jets/s for both.
 
@@ -45,15 +45,15 @@ def main(argv=None):
     import jax
     import yaml
 
-    from multimodal_flows_tpu.config import Config
-    from multimodal_flows_tpu.data.aoj import (AspenOpenJets, extract_metadata,
+    from multimodal_flows.config import Config
+    from multimodal_flows.data.aoj import (AspenOpenJets, extract_metadata,
                                                sample_from_empirical_masks)
-    from multimodal_flows_tpu.sampling.generator import (generate_bucketed,
+    from multimodal_flows.sampling.generator import (generate_bucketed,
                                                          generate_packed)
-    from multimodal_flows_tpu.train.systems import build_system
-    from multimodal_flows_tpu.train.trainer import Trainer
-    from multimodal_flows_tpu.utils import enable_compilation_cache
-    from multimodal_flows_tpu.utils.logger import SimpleLogger as log
+    from multimodal_flows.train.systems import build_system
+    from multimodal_flows.train.trainer import Trainer
+    from multimodal_flows.utils import enable_compilation_cache
+    from multimodal_flows.utils.logger import SimpleLogger as log
 
     enable_compilation_cache()
 

@@ -4,7 +4,7 @@ Re-design of the reference script (`scripts/extract_cms_nanoaod.py:27-134`):
 reads NanoAOD ROOT files with uproot and writes event-level features
 (object multiplicities, MET, leading-object kinematics, HT) to CSV/NPZ.
 
-uproot is an optional dependency (not part of the TPU compute stack); the
+uproot is an optional dependency (not part of the JAX compute stack); the
 script degrades with a clear error when it is missing.  All array work is
 vectorized numpy/awkward-free where possible.
 """
@@ -43,7 +43,7 @@ def extract_event_level(path: str, tree: str = "Events", max_events: int | None 
     except ImportError as e:
         raise RuntimeError(
             "uproot is required for NanoAOD extraction (pip install uproot); "
-            "it is not part of the TPU runtime environment") from e
+            "it is not part of the JAX runtime environment") from e
 
     out = {}
     with uproot.open(path) as f:

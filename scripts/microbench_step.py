@@ -28,10 +28,10 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from multimodal_flows_tpu.config import Config
-    from multimodal_flows_tpu.train.systems import MMF
-    from multimodal_flows_tpu.data.state import MultiModal
-    from multimodal_flows_tpu.utils import enable_compilation_cache
+    from multimodal_flows.config import Config
+    from multimodal_flows.train.systems import MMF
+    from multimodal_flows.data.state import MultiModal
+    from multimodal_flows.utils import enable_compilation_cache
 
     enable_compilation_cache()
 

@@ -3,7 +3,7 @@
 Flag-compatible re-design of the reference entry point
 (`scripts/train_mmf.py:12-180`): same flag names and defaults, same
 config.yaml round-trip for resume, but the execution engine is the
-TPU-native Trainer (jitted step over a data mesh) instead of Lightning DDP.
+JAX Trainer (jitted step over a data mesh) instead of Lightning DDP.
 """
 
 from __future__ import annotations
@@ -14,13 +14,13 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from multimodal_flows_tpu.config import Config
-from multimodal_flows_tpu.data.aoj import AspenOpenJets
-from multimodal_flows_tpu.data.datasets import ArrayDataset
-from multimodal_flows_tpu.data.state import DataCoupling, MultiModal
-from multimodal_flows_tpu.train.systems import build_system
-from multimodal_flows_tpu.train.trainer import Trainer
-from multimodal_flows_tpu.utils.logger import SimpleLogger as log
+from multimodal_flows.config import Config
+from multimodal_flows.data.aoj import AspenOpenJets
+from multimodal_flows.data.datasets import ArrayDataset
+from multimodal_flows.data.state import DataCoupling, MultiModal
+from multimodal_flows.train.systems import build_system
+from multimodal_flows.train.trainer import Trainer
+from multimodal_flows.utils.logger import SimpleLogger as log
 
 
 def experiment_configs(argv=None) -> Config:
@@ -81,11 +81,9 @@ def experiment_configs(argv=None) -> Config:
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top_k", type=int, default=None)
     p.add_argument("--top_p", type=float, default=None)
-    # TPU-native extras
+    # extras with no reference flag
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
-    p.add_argument("--attn_impl", type=str, default=None,
-                   choices=[None, "auto", "xla", "pallas"])
     p.add_argument("--system", type=str, default="MMF",
                    choices=["MMF", "CFM", "MJB", "GPT"],
                    help="trainable system (the reference drives only MMF "
@@ -173,7 +171,7 @@ def make_datasets(config: Config, system_kind: str = "MMF"):
     config.metadata = metadata
 
     if system_kind == "GPT":
-        from multimodal_flows_tpu.data.datasets import jet_set_to_seq
+        from multimodal_flows.data.datasets import jet_set_to_seq
 
         config.max_seq_length = config.max_num_particles
         seq = jet_set_to_seq(jets, config.vocab_size)
@@ -185,7 +183,7 @@ def make_datasets(config: Config, system_kind: str = "MMF"):
 
 
 def main(argv=None):
-    from multimodal_flows_tpu.utils import enable_compilation_cache
+    from multimodal_flows.utils import enable_compilation_cache
 
     enable_compilation_cache()
     config = experiment_configs(argv)

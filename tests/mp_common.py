@@ -5,8 +5,8 @@ so the loss comparison is apples-to-apples."""
 
 import numpy as np
 
-from multimodal_flows_tpu.config import Config
-from multimodal_flows_tpu.data.state import DataCoupling, MultiModal
+from multimodal_flows.config import Config
+from multimodal_flows.data.state import DataCoupling, MultiModal
 
 GLOBAL_BATCH = 16
 

@@ -31,20 +31,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from multimodal_flows_tpu.config import Config
-from multimodal_flows_tpu.data.state import DataCoupling, MultiModal
-from multimodal_flows_tpu.parallel.mesh import (
+from multimodal_flows.config import Config
+from multimodal_flows.data.state import DataCoupling, MultiModal
+from multimodal_flows.parallel.mesh import (
     make_mesh,
     replicated_sharding,
     shard_coupling,
     sync_hosts,
 )
-from multimodal_flows_tpu.sampling.generator import (
+from multimodal_flows.sampling.generator import (
     gather_multihost,
     generate,
     make_noise_source,
 )
-from multimodal_flows_tpu.train.systems import MMF
+from multimodal_flows.train.systems import MMF
 from tests.mp_common import GLOBAL_BATCH, make_global_coupling, tiny_mp_config
 
 

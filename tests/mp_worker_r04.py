@@ -8,8 +8,8 @@ tests/test_multiprocess.py::test_two_process_fsdp_tp_ckpt_packed:
   * phase "train": FSDP-sharded state creation + one optimizer step via
     the Trainer's compiled step, a TP (4x2 mesh) state + step, a packed
     per-process generation all-gathered with `gather_multihost`, and a
-    CheckpointManager.save of the FSDP-sharded train state (orbax writes
-    the shards each process owns; all fs bookkeeping is process-0-gated,
+    CheckpointManager.save of the FSDP-sharded train state (the shards are
+    all-gathered and process 0 writes the file; all fs bookkeeping is process-0-gated,
     checkpoints.py:_save_to).
   * phase "restore": FRESH processes restore that checkpoint onto a
     newly-minted FSDP-sharded abstract state (exercising restore into
@@ -45,16 +45,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from multimodal_flows_tpu.parallel.mesh import (
+from multimodal_flows.parallel.mesh import (
     make_mesh,
     make_mesh_2d,
     replicated_sharding,
     shard_coupling,
 )
-from multimodal_flows_tpu.sampling.generator import gather_multihost, generate_packed
-from multimodal_flows_tpu.train.checkpoints import CheckpointManager
-from multimodal_flows_tpu.train.systems import MMF
-from multimodal_flows_tpu.train.trainer import Trainer
+from multimodal_flows.sampling.generator import gather_multihost, generate_packed
+from multimodal_flows.train.checkpoints import CheckpointManager
+from multimodal_flows.train.systems import MMF
+from multimodal_flows.train.trainer import Trainer
 from tests.mp_common import make_global_coupling, tiny_mp_config
 
 

@@ -5,7 +5,7 @@ import h5py
 import numpy as np
 import pytest
 
-from multimodal_flows_tpu.data.aoj import (
+from multimodal_flows.data.aoj import (
     AspenOpenJets,
     extract_metadata,
     filter_particles,
@@ -108,6 +108,17 @@ def test_loader_end_to_end(aoj_file):
     d = np.diff(np.where(m, pt, 0.0), axis=1)
     both_real = m[:, 1:] & m[:, :-1]
     assert np.all(d[both_real] <= 1e-4)
+
+
+def test_loader_names_missing_h5py(aoj_file, monkeypatch):
+    """Without h5py installed, reading an AOJ file says which package is
+    missing instead of failing deep in the loader."""
+    import sys
+
+    data_dir, fname, _ = aoj_file
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="h5py package"):
+        AspenOpenJets(data_dir, fname)(max_num_particles=10)
 
 
 def test_loader_relative_coordinates(aoj_file):
@@ -292,6 +303,6 @@ def test_real_schema_unsorted_file_token_alignment(tmp_path):
     # and per jet, the leading token really belongs to the leading-pT
     # particle of the raw file
     lead = np.argmax(pt * (pf[..., 3] > 0), axis=1)
-    from multimodal_flows_tpu.data.aoj import map_pid_to_tokens
+    from multimodal_flows.data.aoj import map_pid_to_tokens
     expect = map_pid_to_tokens(pf[np.arange(len(pf)), lead, 8])
     np.testing.assert_array_equal(a.discrete[:, 0, 0], expect)

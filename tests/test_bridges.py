@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_flows_tpu.dynamics.bridges import (
+from multimodal_flows.dynamics.bridges import (
     RandomTelegraphBridge,
     UniformFlow,
     top_k_filter,
     top_p_filter,
 )
-from multimodal_flows_tpu.dynamics.thermostats import (
+from multimodal_flows.dynamics.thermostats import (
     ConstantThermostat,
     LinearThermostat,
     THERMOSTAT_REGISTRY,

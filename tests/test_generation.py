@@ -11,10 +11,10 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 
-from multimodal_flows_tpu.config import Config
-from multimodal_flows_tpu.data.state import MultiModal
-from multimodal_flows_tpu.sampling.generator import generate, make_noise_source
-from multimodal_flows_tpu.train.systems import MMF
+from multimodal_flows.config import Config
+from multimodal_flows.data.state import MultiModal
+from multimodal_flows.sampling.generator import generate, make_noise_source
+from multimodal_flows.train.systems import MMF
 from tests.test_aoj import write_synthetic_aoj
 
 
@@ -164,7 +164,7 @@ def test_cli_train_sample_gpt(tmp_path):
 def test_generate_works_for_cfm_and_mjb():
     """The generic generation driver runs continuous-only and discrete-only
     systems too (the reference only wires MMF into sample_mmf.py)."""
-    from multimodal_flows_tpu.train.systems import CFM, MJB
+    from multimodal_flows.train.systems import CFM, MJB
 
     mask = np.zeros((8, 6, 1), np.int64)
     mask[:, :4] = 1
@@ -200,7 +200,7 @@ def test_generate_deterministic_given_seed():
 def test_generate_bucketed_matches_layout():
     """Bucketed generation returns the same jets in the original order with
     identical masks; statistics match the unbucketed path."""
-    from multimodal_flows_tpu.sampling.generator import generate_bucketed
+    from multimodal_flows.sampling.generator import generate_bucketed
 
     cfg = tiny_cfg(max_num_particles=12)
     sys_ = MMF(cfg)
@@ -232,8 +232,8 @@ def test_generate_bucketed_matches_layout():
 
 def test_generate_bucketed_sharded_mesh():
     """Bucketed generation under the 8-device data mesh."""
-    from multimodal_flows_tpu.parallel.mesh import make_mesh
-    from multimodal_flows_tpu.sampling.generator import generate_bucketed
+    from multimodal_flows.parallel.mesh import make_mesh
+    from multimodal_flows.sampling.generator import generate_bucketed
 
     cfg = tiny_cfg(max_num_particles=12, batch_size=8)
     sys_ = MMF(cfg)
@@ -254,9 +254,9 @@ def test_generate_tail_batch_shrinking():
     runs as a separate power-of-two program; tiny workloads shrink the
     whole program (a 1-jet tail bucket must not cost a full-batch
     trajectory).  Order and per-jet masks are preserved."""
-    from multimodal_flows_tpu.config import Config
-    from multimodal_flows_tpu.sampling.generator import generate
-    from multimodal_flows_tpu.train.systems import MMF
+    from multimodal_flows.config import Config
+    from multimodal_flows.sampling.generator import generate
+    from multimodal_flows.train.systems import MMF
     from tests.conftest import make_jets
 
     cfg = Config(model="FusedParticleFormer", n_embd=16, n_inner=32, n_layer=1,
@@ -281,8 +281,8 @@ def test_generate_under_tensor_parallel_mesh():
     """Sampling with params laid out by tp_sharding on a (4, 2) mesh: the
     generator replicates params onto the mesh and the batch shards over
     `data` only."""
-    from multimodal_flows_tpu.parallel.mesh import make_mesh_2d, tp_sharding
-    from multimodal_flows_tpu.sampling.generator import generate
+    from multimodal_flows.parallel.mesh import make_mesh_2d, tp_sharding
+    from multimodal_flows.sampling.generator import generate
 
     cfg = tiny_cfg(max_num_particles=8, batch_size=8)
     sys_ = MMF(cfg)
@@ -304,7 +304,7 @@ def test_generate_under_tensor_parallel_mesh():
 def test_snap_batch_ladder():
     """Tail programs snap to the {8,16,32, multiples-of-64} ladder so the
     compile count stays bounded while padding waste stays <64 rows."""
-    from multimodal_flows_tpu.sampling.generator import _snap_batch
+    from multimodal_flows.sampling.generator import _snap_batch
 
     assert [_snap_batch(n) for n in (1, 8, 9, 16, 17, 32)] == [8, 8, 16, 16, 32, 32]
     assert [_snap_batch(n) for n in (33, 64, 65, 128, 129, 200, 255)] == \
@@ -324,8 +324,8 @@ def test_fast_inference_softmax_sample_equivalence_at_trained_scale():
     sits in the analytic exactness window ([25, 80), below the fp32-exp
     clamp), then a full simulate() is traced once with and once without
     the fast path and the generated samples are compared."""
-    import multimodal_flows_tpu.models.attention as mattn
-    from multimodal_flows_tpu.ops.attention import fast_inference_softmax
+    import multimodal_flows.models.attention as mattn
+    from multimodal_flows.ops.attention import fast_inference_softmax
 
     cfg = tiny_cfg(model="ParticleFormer", n_embd=32, n_head=2)
     sys_ = MMF(cfg)

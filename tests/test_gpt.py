@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from multimodal_flows_tpu.config import Config
-from multimodal_flows_tpu.data.datasets import jet_set_to_seq, seq_to_jet_set
-from multimodal_flows_tpu.data.state import DataCoupling, MultiModal
-from multimodal_flows_tpu.train.gpt import GPT
+from multimodal_flows.config import Config
+from multimodal_flows.data.datasets import jet_set_to_seq, seq_to_jet_set
+from multimodal_flows.data.state import DataCoupling, MultiModal
+from multimodal_flows.train.gpt import GPT
 from tests.conftest import make_jets
 
 V = 9  # vocab_size: BOS=10, EOS=11, PAD=12
@@ -97,7 +97,7 @@ def test_gpt_generate_semantics():
 def test_gpt_honors_activation_and_dropout_res():
     """`activation` and `dropout_res` are wired (GPT2 semantics, reference
     `GPT.py:31-34`), not silently ignored (VERDICT r1 missing #5)."""
-    from multimodal_flows_tpu.models.gpt import FlavorSeqGPT
+    from multimodal_flows.models.gpt import FlavorSeqGPT
 
     base = dict(n_embd=16, n_inner=32, n_layer=1, n_head=2, vocab_size=9,
                 max_seq_length=6)
@@ -132,7 +132,7 @@ def test_gpt_decode_matches_full_forward():
     at every position (same params, same tokens)."""
     cfg = Config(n_embd=16, n_inner=32, n_layer=2, n_head=2, vocab_size=9,
                  max_seq_length=6)
-    from multimodal_flows_tpu.models.gpt import FlavorSeqGPT
+    from multimodal_flows.models.gpt import FlavorSeqGPT
 
     m = FlavorSeqGPT(cfg)
     T = cfg.max_seq_length + 2

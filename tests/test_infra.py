@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_flows_tpu.config import Config
-from multimodal_flows_tpu.train.checkpoints import CheckpointManager
-from multimodal_flows_tpu.train.lr_schedules import warmup_cosine_epoch_schedule
-from multimodal_flows_tpu.utils.logger import MetricsLogger
+from multimodal_flows.config import Config
+from multimodal_flows.train.checkpoints import CheckpointManager
+from multimodal_flows.train.lr_schedules import warmup_cosine_epoch_schedule
+from multimodal_flows.utils.logger import MetricsLogger
 
 
 def test_checkpoint_best_slots(tmp_path):
@@ -60,6 +60,71 @@ def test_config_roundtrip(tmp_path):
     assert loaded.experiment_id == cfg.experiment_id
 
 
+def test_config_load_drops_retired_keys():
+    """An experiment saved by an older version (its config still names the
+    retired attention-implementation knob) still loads; unknown keys are
+    dropped."""
+    loaded = Config.load(os.path.join(os.path.dirname(__file__), "data",
+                                      "legacy_experiment"))
+    assert loaded.n_embd == 32 and loaded.experiment_id == "legacy"
+    assert "pallas" not in repr(loaded)
+
+
+def test_checkpoint_restores_target_sharding_and_checks_shapes(tmp_path):
+    """Leaves come back with the target's dtype and, for device arrays,
+    the target's sharding; a shape mismatch is an error."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from multimodal_flows.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    sharded = NamedSharding(mesh, P("data"))
+    state = {"params": {"w": jax.device_put(jnp.arange(16.0), sharded),
+                        "b": jnp.ones((3,), jnp.float32)},
+             "step": np.full((), 7, np.int32)}
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(state, {"val_loss": 1.0}, epoch=1)
+
+    target = jax.tree.map(jnp.zeros_like, state)
+    target["params"]["w"] = jax.device_put(target["params"]["w"], sharded)
+    out = mgr.load(target, "last")
+    assert out["params"]["w"].sharding == sharded
+    np.testing.assert_array_equal(np.asarray(out["params"]["w"]), np.arange(16.0))
+    assert out["step"].dtype == np.int32 and int(out["step"]) == 7
+
+    target["params"]["b"] = jnp.zeros((4,), jnp.float32)
+    with pytest.raises(ValueError, match="shape"):
+        mgr.load(target, "last")
+
+
+def test_compilation_cache_uses_env_dir(monkeypatch, tmp_path):
+    import jax
+
+    from multimodal_flows.utils import enable_compilation_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert enable_compilation_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before  # nothing set in code
+
+
+def test_compilation_cache_defaults_to_checkout_dir(monkeypatch):
+    import jax
+
+    from multimodal_flows import utils
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        assert utils.enable_compilation_cache() == os.path.join(repo, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == utils.REPO_CACHE_DIR
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    assert ".jax_cache/" in open(os.path.join(repo, ".gitignore")).read().split()
+
+
 def test_lr_schedule_warmup_cosine():
     spe = 10
     sched = warmup_cosine_epoch_schedule(lr=1.0, lr_final=0.1, warmup_epochs=2,
@@ -91,7 +156,7 @@ def test_metrics_logger(tmp_path):
 
 
 def test_unique_dir(tmp_path):
-    from multimodal_flows_tpu.utils.logger import get_unique_dir, setup_logging_dir
+    from multimodal_flows.utils.logger import get_unique_dir, setup_logging_dir
 
     base = str(tmp_path / "run")
     assert get_unique_dir(base) == base
@@ -112,7 +177,7 @@ def test_process_batch_slice_partitions_globally():
     import numpy as np
     import pytest
 
-    from multimodal_flows_tpu.parallel.mesh import (
+    from multimodal_flows.parallel.mesh import (
         local_batch_shard, process_batch_slice)
 
     n, n_proc = 24, 4
@@ -172,7 +237,7 @@ def _read_tfrecords(path):
     """Minimal TFRecord reader with masked-CRC verification."""
     import struct
 
-    from multimodal_flows_tpu.utils.logger import _masked_crc
+    from multimodal_flows.utils.logger import _masked_crc
 
     records = []
     with open(path, "rb") as f:
@@ -251,7 +316,7 @@ def test_tensorboard_sink(tmp_path):
     (masked CRC32C) and decodable scalar Summary events."""
     import glob
 
-    from multimodal_flows_tpu.utils.logger import TensorBoardSink
+    from multimodal_flows.utils.logger import TensorBoardSink
 
     sink = TensorBoardSink(str(tmp_path / "tb"))
     sink.log(7, {"train_loss": 1.5, "val_loss": 2.25, "note": "skipme"})

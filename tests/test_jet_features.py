@@ -5,15 +5,15 @@
 import numpy as np
 import pytest
 
-from multimodal_flows_tpu.data.state import MultiModal
-from multimodal_flows_tpu.utils import jet_substructure as jk
-from multimodal_flows_tpu.utils.jet_features import (
+from multimodal_flows.data.state import MultiModal
+from multimodal_flows.utils import jet_substructure as jk
+from multimodal_flows.utils.jet_features import (
     EnergyCorrelationFunctions,
     JetChargeDipole,
     JetFeatures,
     ParticleClouds,
 )
-from multimodal_flows_tpu.utils.metrics import (
+from multimodal_flows.utils.metrics import (
     flavor_multiplicities,
     wasserstein1d,
     wasserstein_flavor,

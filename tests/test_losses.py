@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_flows_tpu.train.losses import MultiTaskLoss, masked_ce, masked_mse
+from multimodal_flows.train.losses import MultiTaskLoss, masked_ce, masked_mse
 
 
 def test_masked_mse_ignores_pads():

@@ -70,12 +70,12 @@ def test_two_process_parity(tmp_path):
     # ---- single-process 8-device reference on the identical batch ------
     import jax
 
-    from multimodal_flows_tpu.parallel.mesh import (
+    from multimodal_flows.parallel.mesh import (
         make_mesh,
         replicated_sharding,
         shard_coupling,
     )
-    from multimodal_flows_tpu.train.systems import MMF
+    from multimodal_flows.train.systems import MMF
     from tests.mp_common import make_global_coupling, tiny_mp_config
 
     assert jax.device_count() == 8  # conftest virtual mesh

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_flows_tpu.config import Config
-from multimodal_flows_tpu.data.state import MultiModal
-from multimodal_flows_tpu.models.registry import MODEL_REGISTRY, build_model
-from multimodal_flows_tpu.models.particle_transformers import lund_observables
+from multimodal_flows.config import Config
+from multimodal_flows.data.state import MultiModal
+from multimodal_flows.models.registry import MODEL_REGISTRY, build_model
+from multimodal_flows.models.particle_transformers import lund_observables
 from tests.conftest import make_jets
 
 
@@ -159,7 +159,7 @@ def test_attention_prob_dropout():
     dropout_p=config.dropout into SDPA, `networks/attention.py:69`):
     with dropout > 0 the training forward is stochastic beyond the
     residual dropout alone, and eval is deterministic."""
-    from multimodal_flows_tpu.models.attention import SelfAttention
+    from multimodal_flows.models.attention import SelfAttention
 
     x = jnp.asarray(np.random.default_rng(0).normal(size=(2, 6, 16)),
                     jnp.float32)

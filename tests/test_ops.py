@@ -1,13 +1,14 @@
 """Attention op tests: masking semantics, key-mask vs pair-bias
-equivalence, pallas/xla parity (pallas runs on TPU only)."""
+equivalence, token-major vs head-major layouts, and segment-masked packed
+rows against per-jet attention."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_flows_tpu.models.blocks import key_mask_bias, pair_mask_bias
-from multimodal_flows_tpu.ops.attention import _xla_attention, multihead_attention
+from multimodal_flows.models.blocks import key_mask_bias, pair_mask_bias
+from multimodal_flows.ops.attention import multihead_attention
 
 
 def _qkv(B=4, H=2, T=10, Dh=8, seed=0):
@@ -25,8 +26,8 @@ def test_key_mask_equals_pair_bias_on_real_rows():
     (non-pad) query row — pad rows are allowed to differ (discarded)."""
     q, k, v = _qkv()
     mask = _mask()
-    out_pair = _xla_attention(q, k, v, pair_mask_bias(mask), None)
-    out_key = _xla_attention(q, k, v, None, key_mask_bias(mask))
+    out_pair = multihead_attention(q, k, v, pair_mask_bias(mask), None)
+    out_key = multihead_attention(q, k, v, None, key_mask_bias(mask))
     real = np.asarray(mask[..., 0]) > 0
     np.testing.assert_allclose(np.asarray(out_pair).transpose(0, 2, 1, 3)[real],
                                np.asarray(out_key).transpose(0, 2, 1, 3)[real],
@@ -39,8 +40,8 @@ def test_pad_keys_never_attended():
     v_dirty = v.at[:, :, -1, :].set(1e6)  # poison the last key slot
     # jets where the last slot is padded must be unaffected by the poison
     km = key_mask_bias(mask)
-    out_clean = _xla_attention(q, k, v, None, km)
-    out_dirty = _xla_attention(q, k, v_dirty, None, km)
+    out_clean = multihead_attention(q, k, v, None, km)
+    out_dirty = multihead_attention(q, k, v_dirty, None, km)
     pad_last = np.asarray(mask[:, -1, 0]) == 0
     np.testing.assert_allclose(np.asarray(out_clean)[pad_last],
                                np.asarray(out_dirty)[pad_last], rtol=1e-5)
@@ -50,20 +51,8 @@ def test_bias_composes_with_key_mask():
     q, k, v = _qkv()
     mask = _mask()
     bias = jax.random.normal(jax.random.PRNGKey(5), (4, 1, 10, 10))
-    out = _xla_attention(q, k, v, bias, key_mask_bias(mask))
+    out = multihead_attention(q, k, v, bias, key_mask_bias(mask))
     assert np.isfinite(np.asarray(out)).all()
-
-
-@pytest.mark.skipif(jax.default_backend() != "tpu", reason="pallas kernel is TPU-only")
-def test_pallas_matches_xla():
-    from multimodal_flows_tpu.ops.pallas_attention import pallas_set_attention
-
-    q, k, v = _qkv(B=8, H=4, T=150, Dh=64)
-    mask = _mask(B=8, T=150)
-    km = key_mask_bias(mask)
-    ref = _xla_attention(q, k, v, None, km)
-    out = pallas_set_attention(q, k, v, km)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-3)
 
 
 def _btc_qkv(B=12, T=10, C=32, seed=0):
@@ -75,7 +64,7 @@ def test_btc_xla_matches_transposed_formulation():
     """The token-major (B,T,C) attention equals the head-transposed
     (B,H,T,Dh) formulation (the production path never materializes the
     head layout)."""
-    from multimodal_flows_tpu.ops.attention import _xla_attention_btc
+    from multimodal_flows.ops.attention import multihead_attention_btc
 
     B, T, C, H = 6, 10, 32, 4
     q, k, v = _btc_qkv(B, T, C)
@@ -85,49 +74,18 @@ def test_btc_xla_matches_transposed_formulation():
     def heads(t):
         return t.reshape(B, T, H, C // H).transpose(0, 2, 1, 3)
 
-    ref = _xla_attention(heads(q), heads(k), heads(v), None, km)
+    ref = multihead_attention(heads(q), heads(k), heads(v), None, km)
     ref = np.asarray(ref).transpose(0, 2, 1, 3).reshape(B, T, C)
-    out = np.asarray(_xla_attention_btc(q, k, v, H, None, km))
+    out = np.asarray(multihead_attention_btc(q, k, v, H, None, km))
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
-
-
-def test_pallas_btc_interpret_parity_and_grads():
-    """The fused token-major kernel runs in interpret mode on every
-    backend (no more TPU-only skip): forward parity and custom-VJP grads
-    vs the XLA formulation, including uneven batch and no-mask paths."""
-    from multimodal_flows_tpu.ops.attention import _xla_attention_btc
-    from multimodal_flows_tpu.ops.pallas_attention import pallas_btc_attention
-
-    B, T, C, H = 12, 10, 32, 4  # B=12 exercises the divisor fallback
-    q, k, v = _btc_qkv(B, T, C)
-    mask = _mask(B, T)
-    km = jnp.where(mask[..., 0] > 0, 0.0, -1e9).astype(jnp.float32)
-
-    ref = _xla_attention_btc(q, k, v, H, None, km)
-    out = pallas_btc_attention(q, k, v, km, None, H, 16, True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-5)
-
-    g_pal = jax.grad(lambda a, b, c: (
-        pallas_btc_attention(a, b, c, km, None, H, 16, True) ** 2).sum(),
-        argnums=(0, 1, 2))(q, k, v)
-    g_xla = jax.grad(lambda a, b, c: (
-        _xla_attention_btc(a, b, c, H, None, km) ** 2).sum(),
-        argnums=(0, 1, 2))(q, k, v)
-    for a, b in zip(g_pal, g_xla):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-4)
-
-    # no-mask path
-    ref2 = _xla_attention_btc(q, k, v, H, None, None)
-    out2 = pallas_btc_attention(q, k, v, None, None, H, 16, True)
-    np.testing.assert_allclose(np.asarray(out2), np.asarray(ref2), atol=1e-5)
 
 
 def test_unnormalized_softmax_matches_safe_softmax():
     """The max-subtract-free softmax (enabled when qk-LN bounds the scores)
     must match the safe softmax exactly on bounded inputs, including -1e9
     key masking and gradients."""
-    from multimodal_flows_tpu.ops.attention import (
-        _xla_attention_btc,
+    from multimodal_flows.ops.attention import (
+        multihead_attention_btc,
         fast_inference_softmax,
     )
 
@@ -136,48 +94,60 @@ def test_unnormalized_softmax_matches_safe_softmax():
     mask = _mask(B, T)
     km = jnp.where(mask[..., 0] > 0, 0.0, -1e9).astype(jnp.float32)
 
-    ref = _xla_attention_btc(q, k, v, H, None, km)
+    ref = multihead_attention_btc(q, k, v, H, None, km)
     with fast_inference_softmax():
-        out = _xla_attention_btc(q, k, v, H, None, km, unnormalized_softmax=True)
+        out = multihead_attention_btc(q, k, v, H, None, km, unnormalized_softmax=True)
         np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-6)
 
-        g_ref = jax.grad(lambda a: (_xla_attention_btc(a, k, v, H, None, km) ** 2).sum())(q)
-        g_out = jax.grad(lambda a: (_xla_attention_btc(
+        g_ref = jax.grad(lambda a: (multihead_attention_btc(a, k, v, H, None, km) ** 2).sum())(q)
+        g_out = jax.grad(lambda a: (multihead_attention_btc(
             a, k, v, H, None, km, unnormalized_softmax=True) ** 2).sum())(q)
         np.testing.assert_allclose(np.asarray(g_out), np.asarray(g_ref), atol=1e-5)
 
     # without the trace-time opt-in, the flag is inert (val-loss safety)
-    out_gated = _xla_attention_btc(q, k, v, H, None, km, unnormalized_softmax=True)
+    out_gated = multihead_attention_btc(q, k, v, H, None, km, unnormalized_softmax=True)
     np.testing.assert_allclose(np.asarray(out_gated), np.asarray(ref), atol=1e-6)
 
     # full rows of pad keys on pad queries stay finite
     assert np.isfinite(np.asarray(out)).all()
 
 
-def test_pallas_btc_segments_interpret_parity():
-    """Segment-masked (packed multi-jet row) fused attention: interpret-
-    mode forward + grad parity vs the XLA segments path, with pads as
-    segment -1 (they attend only each other; outputs masked downstream)."""
-    from multimodal_flows_tpu.ops.attention import _xla_attention_btc
-    from multimodal_flows_tpu.ops.pallas_attention import pallas_btc_attention
+@pytest.mark.parametrize("widths", [(5, 4), (3, 3, 3, 2), (12,)])
+def test_segment_attention_matches_per_jet(widths):
+    """Segment-masked attention over a packed row (several jets behind a
+    block-diagonal mask, pads as segment -1) equals attention run on each
+    jet alone, in values and in gradients."""
+    from multimodal_flows.ops.attention import multihead_attention_btc
 
-    B, T, C, H = 8, 12, 32, 4
+    B, T, C, H = 3, 12, 32, 4
     q, k, v = _btc_qkv(B, T, C)
-    # packed rows: jets of width 5, 4, and 3 pads per row
     seg = np.full((B, T), -1, np.int32)
-    seg[:, :5] = 0
-    seg[:, 5:9] = 1
+    bounds = np.cumsum((0,) + widths)
+    for j, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        seg[:, lo:hi] = j
     seg = jnp.asarray(seg)
+    w = jax.random.normal(jax.random.PRNGKey(9), (B, T, C))
 
-    ref = _xla_attention_btc(q, k, v, H, None, None, segments=seg)
-    out = pallas_btc_attention(q, k, v, None, seg, H, 16, True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-5)
+    def packed(a, b, c):
+        out = multihead_attention_btc(a, b, c, H, None, None, segments=seg)
+        return out[:, :bounds[-1]]
 
-    g_pal = jax.grad(lambda a, b, c: (
-        pallas_btc_attention(a, b, c, None, seg, H, 16, True) ** 2).sum(),
-        argnums=(0, 1, 2))(q, k, v)
-    g_xla = jax.grad(lambda a, b, c: (
-        _xla_attention_btc(a, b, c, H, None, None, segments=seg) ** 2).sum(),
-        argnums=(0, 1, 2))(q, k, v)
-    for a, b in zip(g_pal, g_xla):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-4)
+    def per_jet(a, b, c):
+        return jnp.concatenate(
+            [multihead_attention_btc(a[:, lo:hi], b[:, lo:hi], c[:, lo:hi], H, None, None)
+             for lo, hi in zip(bounds[:-1], bounds[1:])], axis=1)
+
+    def loss(f):
+        return lambda a, b, c: (f(a, b, c) * w[:, :bounds[-1]]).sum()
+
+    with jax.default_matmul_precision("highest"):
+        np.testing.assert_allclose(np.asarray(packed(q, k, v)),
+                                   np.asarray(per_jet(q, k, v)), rtol=1e-5, atol=1e-6)
+        g_packed = jax.grad(loss(packed), argnums=(0, 1, 2))(q, k, v)
+        g_jet = jax.grad(loss(per_jet), argnums=(0, 1, 2))(q, k, v)
+    for a, b in zip(g_packed, g_jet):
+        a, b = np.asarray(a), np.asarray(b)
+        np.testing.assert_allclose(a[:, :bounds[-1]], b[:, :bounds[-1]],
+                                   rtol=1e-5, atol=1e-6)
+        # pad slots carry no gradient into the jets' outputs
+        assert np.all(a[:, bounds[-1]:] == 0)

@@ -17,17 +17,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_flows_tpu.config import Config
-from multimodal_flows_tpu.data.datasets import ArrayDataset
-from multimodal_flows_tpu.data.packing import (
+from multimodal_flows.config import Config
+from multimodal_flows.data.datasets import ArrayDataset
+from multimodal_flows.data.packing import (
     PackedJets,
     pack_multimodal,
     pad_rows,
     singleton_rows,
 )
-from multimodal_flows_tpu.data.state import DataCoupling, MultiModal
-from multimodal_flows_tpu.train.systems import MMF, build_system
-from multimodal_flows_tpu.train.trainer import Trainer
+from multimodal_flows.data.state import DataCoupling, MultiModal
+from multimodal_flows.train.systems import MMF, build_system
+from multimodal_flows.train.trainer import Trainer
 
 
 def _mk_cfg(**kw):
@@ -59,7 +59,7 @@ def _packed_twin(jets, t_jets, xt, kt, drift, W):
     dr = pack_multimodal(jets.replace(continuous=drift), W)[0]
     # per-(row, slot) jet time: invert the layout via segment ids + the
     # jet order (row, offset); pack_multimodal assigns slots in offset order
-    from multimodal_flows_tpu.data.packing import pack_jets
+    from multimodal_flows.data.packing import pack_jets
     mult = np.asarray(jets.mask)[..., 0].sum(1)
     row_of, offset_of, n_rows = pack_jets(mult, W)
     J = packed.jet_valid.shape[1]
@@ -170,7 +170,7 @@ class TestMMFPackedParity:
 def test_bridge_per_token_time_matches_per_jet():
     """Bridge math with per-token (B, D) time == per-jet (B,) time when
     every token of a jet shares the jet's t."""
-    from multimodal_flows_tpu.dynamics.bridges import RandomTelegraphBridge
+    from multimodal_flows.dynamics.bridges import RandomTelegraphBridge
 
     bridge = RandomTelegraphBridge(0.1, 9)
     rng = np.random.default_rng(0)
@@ -185,7 +185,7 @@ def test_bridge_per_token_time_matches_per_jet():
 
 
 def test_time_token_embedding_shapes():
-    from multimodal_flows_tpu.models.blocks import time_token_embedding, timestep_embedding
+    from multimodal_flows.models.blocks import time_token_embedding, timestep_embedding
 
     t1 = jnp.asarray([0.1, 0.7])
     e1 = time_token_embedding(t1, 16)

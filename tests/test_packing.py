@@ -1,8 +1,7 @@
 """Block-diagonal multi-jet packing: parity + round-trip tests.
 
 Packing puts several low-multiplicity jets into one `pack_width`-token
-attention row behind a same-segment mask (`ops/attention.py` `segments`),
-lifting the attention core onto the T=128 MXU sweet spot (PROFILE_r02).
+attention row behind a same-segment mask (`ops/attention.py` `segments`).
 These tests pin the invariant that makes it legal: the packed forward
 equals the unpacked forward per jet to float tolerance, for every
 packable encoder, and the pack/unpack plumbing is lossless.
@@ -13,15 +12,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_flows_tpu.config import Config
-from multimodal_flows_tpu.data.state import MultiModal
-from multimodal_flows_tpu.sampling.generator import (
+from multimodal_flows.config import Config
+from multimodal_flows.data.state import MultiModal
+from multimodal_flows.sampling.generator import (
     _build_packed_rows,
     _unpack_rows,
     generate_packed,
     pack_jets,
 )
-from multimodal_flows_tpu.train.systems import MMF, build_system
+from multimodal_flows.train.systems import MMF, build_system
 
 
 def _mk_cfg(**kw):
@@ -195,7 +194,7 @@ def test_generate_packed_end_to_end():
 def test_rebalanced_batch():
     """Pad-tail rebalance: the last scan batch must not be mostly empty
     rows riding the full forward."""
-    from multimodal_flows_tpu.sampling.generator import _rebalanced_batch
+    from multimodal_flows.sampling.generator import _rebalanced_batch
 
     # the bench shape: 674 rows at B=256 -> 3 batches of 232 (696 total,
     # not 768)
@@ -252,7 +251,7 @@ def test_generate_packed_handles_pairwise(monkeypatch):
     co-occurrence bias gathers a pre-projected 45-row table (no (B,D,D,E)
     tensor) and the Lund pair-MLP runs in query-row chunks, so the round-3
     HBM blowup is gone and the fallback was removed."""
-    import multimodal_flows_tpu.sampling.generator as gen
+    import multimodal_flows.sampling.generator as gen
 
     packed_calls = []
     real = gen._run_packed_rows
@@ -329,7 +328,7 @@ def test_packed_forward_parity_epic():
 def test_generate_packed_epic_end_to_end(monkeypatch):
     """EPiC samples on the PACKED path end-to-end (the round-3 exclusion at
     generator.py is gone) and returns finite per-jet kinematics."""
-    import multimodal_flows_tpu.sampling.generator as gen
+    import multimodal_flows.sampling.generator as gen
 
     packed_calls = []
     real = gen._run_packed_rows
@@ -375,11 +374,10 @@ def test_lund_chunking_matches_unchunked():
 
 
 def test_generate_packed_caps_dispatch_batch_at_128(monkeypatch):
-    """The packed-row dispatch batch is capped at the measured per-row
-    optimum (PROFILE_r03: flat for B in [88,128], ~7% worse at 256) even
-    when the caller asks for more; the bucketed fallback keeps the
-    caller's batch_size."""
-    from multimodal_flows_tpu.sampling import generator as gen
+    """The packed-row dispatch batch is capped at 128 rows even when the
+    caller asks for more; the bucketed fallback keeps the caller's
+    batch_size."""
+    from multimodal_flows.sampling import generator as gen
 
     cfg = _mk_cfg()
     system = MMF(cfg)

@@ -16,15 +16,15 @@ import numpy as np
 import pytest
 
 from conftest import make_jets
-from multimodal_flows_tpu.config import Config
-from multimodal_flows_tpu.data.datasets import ArrayDataset
-from multimodal_flows_tpu.data.state import DataCoupling, MultiModal
-from multimodal_flows_tpu.train.physics_eval import (
+from multimodal_flows.config import Config
+from multimodal_flows.data.datasets import ArrayDataset
+from multimodal_flows.data.state import DataCoupling, MultiModal
+from multimodal_flows.train.physics_eval import (
     physics_metrics,
     reference_observables,
 )
-from multimodal_flows_tpu.train.systems import build_system
-from multimodal_flows_tpu.train.trainer import Trainer
+from multimodal_flows.train.systems import build_system
+from multimodal_flows.train.trainer import Trainer
 
 META = {"mean": [1.0, 0.0, 0.0], "std": [0.5, 1.0, 1.0]}
 
@@ -71,7 +71,7 @@ def test_physics_metrics_zero_for_identical_samples():
     the observable plumbing: destandardize + JetFeatures + W1)."""
     jets = make_jets(B=32, D=16, seed=5)
     ref_obs = reference_observables(jets, META, 32)
-    from multimodal_flows_tpu.utils.metrics import wasserstein1d
+    from multimodal_flows.utils.metrics import wasserstein1d
 
     for name, vals in ref_obs.items():
         assert wasserstein1d(vals, vals) == 0.0
@@ -112,7 +112,7 @@ def test_physics_eval_uses_common_random_numbers(monkeypatch):
     variance and the argmin picked a noise dip (CLOSURE_r05 run 1,
     PHYSEVAL_CRN_r05.md).  Guards against reintroducing epoch-dependent
     seeding."""
-    import multimodal_flows_tpu.train.physics_eval as pe
+    import multimodal_flows.train.physics_eval as pe
 
     seeds = []
     real = pe.physics_metrics
@@ -139,7 +139,7 @@ def test_physics_eval_uses_common_random_numbers(monkeypatch):
 def test_physics_eval_failure_does_not_kill_fit(monkeypatch):
     """A failing physics eval is logged and skipped — a metric must never
     kill a 1500-epoch run."""
-    import multimodal_flows_tpu.train.physics_eval as pe
+    import multimodal_flows.train.physics_eval as pe
 
     def boom(*a, **kw):
         raise RuntimeError("synthetic failure")

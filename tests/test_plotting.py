@@ -6,9 +6,9 @@ import os
 import matplotlib.pyplot as plt
 import numpy as np
 
-from multimodal_flows_tpu.data.state import MultiModal
-from multimodal_flows_tpu.utils.jet_features import JetChargeDipole, JetFeatures
-from multimodal_flows_tpu.utils.plotting import (
+from multimodal_flows.data.state import MultiModal
+from multimodal_flows.utils.jet_features import JetChargeDipole, JetFeatures
+from multimodal_flows.utils.plotting import (
     flavor_kinematics,
     plot_charge_features,
     plot_flavor_feats,

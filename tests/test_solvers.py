@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from multimodal_flows_tpu.data.state import MultiModal
-from multimodal_flows_tpu.dynamics.bridges import RandomTelegraphBridge
-from multimodal_flows_tpu.dynamics import solvers
+from multimodal_flows.data.state import MultiModal
+from multimodal_flows.dynamics.bridges import RandomTelegraphBridge
+from multimodal_flows.dynamics import solvers
 
 V = 9
 

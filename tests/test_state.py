@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from multimodal_flows_tpu.data.state import DataCoupling, MultiModal
+from multimodal_flows.data.state import DataCoupling, MultiModal
 from tests.conftest import make_jets
 
 

@@ -8,13 +8,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_flows_tpu.config import Config
-from multimodal_flows_tpu.data.datasets import ArrayDataset
-from multimodal_flows_tpu.data.state import DataCoupling, MultiModal
-from multimodal_flows_tpu.data.toy import NGaussians, TwoMoons
-from multimodal_flows_tpu.parallel.mesh import make_mesh, shard_coupling
-from multimodal_flows_tpu.train.systems import CFM, MJB, MMF
-from multimodal_flows_tpu.train.trainer import Trainer
+from multimodal_flows.config import Config
+from multimodal_flows.data.datasets import ArrayDataset
+from multimodal_flows.data.state import DataCoupling, MultiModal
+from multimodal_flows.data.toy import NGaussians, TwoMoons
+from multimodal_flows.parallel.mesh import make_mesh, shard_coupling
+from multimodal_flows.train.systems import CFM, MJB, MMF
+from multimodal_flows.train.trainer import Trainer
 from tests.conftest import make_jets
 
 
@@ -121,7 +121,7 @@ def test_train_step_tensor_parallel_4x2():
     """Tensor parallelism over a (data=4, model=2) mesh: Megatron-style
     kernel sharding (parallel/mesh.py:tp_sharding) reproduces the
     replicated loss exactly (the partitioner's all-reduces are exact)."""
-    from multimodal_flows_tpu.parallel.mesh import make_mesh_2d, tp_sharding
+    from multimodal_flows.parallel.mesh import make_mesh_2d, tp_sharding
     from jax.sharding import PartitionSpec as P
 
     assert len(jax.devices()) == 8
@@ -195,8 +195,8 @@ def test_cfm_mjb_end_to_end():
     `MJB.py:126-146`)."""
     import optax
 
-    from multimodal_flows_tpu.data.state import MultiModal as MM
-    from multimodal_flows_tpu.sampling.generator import make_noise_source
+    from multimodal_flows.data.state import MultiModal as MM
+    from multimodal_flows.sampling.generator import make_noise_source
 
     coupling = jax.tree.map(jnp.asarray, jets_coupling(B=32, D=6))
 
@@ -297,7 +297,7 @@ def test_fsdp_sharded_params_match_replicated():
     s_f = tr_f.init_state(jax.random.PRNGKey(0), 10)
 
     # at least one large leaf is actually sharded across devices
-    from multimodal_flows_tpu.parallel.mesh import fsdp_sharding
+    from multimodal_flows.parallel.mesh import fsdp_sharding
     sharded_leaves = [
         l for l in jax.tree.leaves(s_f.params)
         if hasattr(l, "sharding") and not l.sharding.is_fully_replicated]
